@@ -39,7 +39,7 @@ def main():
     parser.add_argument("--chunk", type=int, default=0,
                         help="score candidates in chunks of this size "
                              "(0 = one fused contraction; needed when "
-                             "n_out*particles*candidates exceeds HBM)")
+                             "n_out*particles*candidates exceeds device memory)")
     args = parser.parse_args()
 
     if args.virtual:
@@ -50,11 +50,10 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
     else:
-        import jax
+        sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+        from qinfer_tpu._cache import enable_compile_cache
 
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 5.0)
+        enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

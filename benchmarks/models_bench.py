@@ -12,7 +12,7 @@ estimators (credible region, MVEE ellipsoid, covariance ellipsoid) on
 the committed posterior.
 
 Usage:
-    python benchmarks/models_bench.py            # both configs, TPU
+    python benchmarks/models_bench.py            # both configs, default backend
     python benchmarks/models_bench.py --cpu
 Prints one JSON line per config.
 """
@@ -36,8 +36,9 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from qinfer_tpu._cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp

@@ -2,9 +2,8 @@
 
 The reference fans independent inference trials out over ipyparallel
 engines (``src/qinfer/perf_testing.py::perf_test_multiple(apply=view.apply)``).
-The TPU-native replacement is :func:`qinfer_tpu.perf_testing.
-perf_test_scan_batch`, which offers two single-program modes measured here
-on the real chip:
+The single-program replacement is :func:`qinfer_tpu.perf_testing.
+perf_test_scan_batch`, which offers two modes measured here:
 
 * ``sequential`` — a 1-device trial mesh (``lax.map`` over trials inside
   ``shard_map``): each trial keeps REAL conditional resampling, so
@@ -12,7 +11,7 @@ on the real chip:
   ~linear in trials (this is also the multi-chip scale-out mode: one
   trial block per device).
 * ``vmap`` — trials batched into one program: every engine op runs at
-  ``trials x particles`` batch (better VPU/HBM utilization), but the
+  ``trials x particles`` batch (better device utilization), but the
   0/1-trip resample ``while_loop`` vmaps to a select-masked body that
   executes whenever ANY trial's ESS predicate fires — with 32
   independent trials some trial resamples almost every step, so in
@@ -22,9 +21,9 @@ The interesting question this script answers with data: at which ensemble
 size does vmap's batching win over its forced-resample penalty?
 
 Usage:
-    python benchmarks/trials_bench.py                 # TPU, both modes
+    python benchmarks/trials_bench.py                 # default backend
     python benchmarks/trials_bench.py --cpu --trials 4 --particles 4096
-Prints one JSON line per run; aggregate artifact in TRIALS_r03.json.
+Prints one JSON line per run.
 """
 
 import argparse
@@ -43,10 +42,8 @@ def main():
     parser.add_argument("--modes", default="baseline,sequential,vmap",
                         help="comma list of baseline|sequential|vmap")
     parser.add_argument("--fill", default=None,
-                        choices=[None, "pallas", "scan", "telescope"],
-                        help="override the resample fill strategy "
-                             "(vmap mode auto-falls-back to 'scan' if the "
-                             "Pallas kernel rejects the batch dimension)")
+                        choices=[None, "gather", "scan", "telescope"],
+                        help="override the resample fill strategy")
     parser.add_argument("--interval", type=int, default=0,
                         help="resample_interval: check the ESS gate only "
                         "every K steps (0 = every step). Synchronizes "
@@ -58,8 +55,9 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from qinfer_tpu._cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import numpy as np
@@ -118,16 +116,8 @@ def main():
         results.append(run("sequential", args.trials, mesh1,
                            LiuWestResampler(fill_strategy=args.fill)))
     if "vmap" in modes:
-        try:
-            results.append(run("vmap", args.trials, None,
-                               LiuWestResampler(fill_strategy=args.fill)))
-        except Exception as e:                        # noqa: BLE001
-            # the Pallas streaming kernel has no batching rule on some
-            # jax versions; re-run with the XLA counting-scan fill
-            print(json.dumps({"note": "vmap fill fallback to 'scan'",
-                              "error": type(e).__name__}), flush=True)
-            results.append(run("vmap_scanfill", args.trials, None,
-                               LiuWestResampler(fill_strategy="scan")))
+        results.append(run("vmap", args.trials, None,
+                           LiuWestResampler(fill_strategy=args.fill)))
     return results
 
 

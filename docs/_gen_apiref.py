@@ -23,8 +23,7 @@ MODULES = [
     "qinfer_tpu.metrics", "qinfer_tpu.utils", "qinfer_tpu.finite_difference",
     "qinfer_tpu.checkpoint", "qinfer_tpu.ipy", "qinfer_tpu.gpu_models",
     "qinfer_tpu.rejuvenation",
-    "qinfer_tpu.ops", "qinfer_tpu.ops.precession", "qinfer_tpu.ops.resample",
-    "qinfer_tpu.ops.streaming_resample", "qinfer_tpu.ops.jacobi",
+    "qinfer_tpu.ops", "qinfer_tpu.ops.accelerated", "qinfer_tpu.ops.resample",
     "qinfer_tpu.parallel", "qinfer_tpu.parallel.mesh",
     "qinfer_tpu.parallel.resample", "qinfer_tpu.parallel.directview",
     "qinfer_tpu.tomography", "qinfer_tpu.tomography.bases",

@@ -15,9 +15,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if jax.default_backend() not in ("tpu",):
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -50,7 +47,7 @@ def main(n_particles=8000, n_experiments=120, p_dep=0.25, seed=0,
               + p_dep * np.kron(np.eye(2), np.eye(2) / 2))
     true_mps = two_outcome.states_to_modelparams(J_true / 2)
 
-    # The round-4 flagship recipe (docs/PERF_NOTES.md): repeat each
+    # The flagship recipe: repeat each
     # fiducial pair `n_shots` times (BinomialModel — the engine updates
     # on the success COUNT at no extra per-step cost) and restore
     # ensemble diversity with exact-posterior Metropolis moves whose

@@ -1,6 +1,6 @@
-"""qinfer_tpu — a TPU-native sequential-Monte-Carlo Bayesian inference engine.
+"""qinfer_tpu — a sequential-Monte-Carlo Bayesian inference engine on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of QInfer
+A from-scratch JAX/XLA rebuild with the capabilities of QInfer
 (reference: ``whitewhim2718/python-qinfer``; see SURVEY.md). The public
 surface is a flat re-export, matching the reference convention
 (``src/qinfer/__init__.py``).

@@ -7,7 +7,6 @@ resampler warnings/errors (``src/qinfer/resamplers.py::ResamplerWarning`` /
 
 __all__ = [
     "ApproximationWarning",
-    "PerformanceWarning",
     "ResamplerWarning",
     "ResamplerError",
     "ZeroWeightWarning",
@@ -18,14 +17,6 @@ __all__ = [
 class ApproximationWarning(RuntimeWarning):
     """Emitted when an approximation (e.g. ALE likelihood estimation, bounded
     rejection in the resampler) may have exceeded its configured tolerance."""
-
-
-class PerformanceWarning(UserWarning):
-    """Emitted at construction time when a configuration is CORRECT but
-    known to hit a measured performance cliff on the current backend (e.g.
-    tomography models whose embedded dimension exceeds the lane-Jacobi
-    kernel's d ≤ 32 gate fall back to ``jnp.linalg.eigh`` on TPU — 3.63 s
-    per (5·10⁴, 32, 32) projection, worse at 64; docs/PERF_NOTES.md)."""
 
 
 class ResamplerWarning(RuntimeWarning):

@@ -2,7 +2,7 @@
 
 The reference (``src/qinfer/abstract_model.py``, ``src/qinfer/distributions.py``)
 expresses models, priors and resamplers as plain Python classes holding NumPy
-state. On TPU everything that crosses a ``jit`` boundary must be a pytree, so
+state. Everything that crosses a ``jit`` boundary must be a pytree, so
 ``qinfer_tpu`` gives every model / distribution / resampler a tiny common base,
 :class:`Module`, that auto-registers subclasses with
 ``jax.tree_util``:

@@ -4,8 +4,8 @@ Reference parity: ``src/qinfer/abstract_model.py`` (SURVEY.md §2 #3) —
 ``Simulatable`` → ``Model`` → ``FiniteOutcomeModel`` plus
 ``DifferentiableModel`` and ``ScoreMixin``.
 
-TPU-native stance
------------------
+Design
+------
 * Models are :class:`~qinfer_tpu._pytree.Module` pytrees: instances pass
   straight through ``jit`` / ``vmap`` / ``lax.scan`` and shard over a mesh.
 * ``likelihood(outcomes, modelparams, expparams)`` keeps the reference's
@@ -23,7 +23,7 @@ TPU-native stance
   ``update_timestep(key, ...)``.
 * ``DifferentiableModel.score`` defaults to **autodiff** (``jax.grad`` of the
   log-likelihood) instead of the reference's central finite differences — a
-  strictly more accurate TPU-native replacement; the finite-difference path
+  strictly more accurate replacement; the finite-difference path
   survives in :class:`ScoreMixin` for models whose likelihood is not
   differentiable.
 """
@@ -394,7 +394,7 @@ class DifferentiableModel(Model):
     """A model exposing the score ∂ log L / ∂θ and Fisher information.
 
     Reference parity: ``src/qinfer/abstract_model.py::DifferentiableModel``
-    (abstract ``score``, ``fisher_information``). TPU-native: the default
+    (abstract ``score``, ``fisher_information``). Here the default
     ``score`` is exact reverse-mode autodiff of ``log likelihood`` — no
     finite differences needed for any JAX-differentiable likelihood.
     """

@@ -6,7 +6,7 @@ adapt_hedge)`` wrapping a :class:`~qinfer_tpu.abstract_model.Simulatable`
 that has no analytic likelihood, plus the hedged-beta estimator helpers
 ``binom_est_p`` / ``binom_est_error``.
 
-TPU-native stance: the reference hosts a loop that keeps adding
+Design: the reference hosts a loop that keeps adding
 ``samp_step`` simulations until the standard error drops below tolerance.
 Here the same adaptivity runs *inside* jit: fixed-shape chunks of
 ``samp_step`` simulations accumulate under a ``lax.while_loop`` whose trip
@@ -58,7 +58,7 @@ class ALEApproximateModel(FiniteOutcomeModel):
     :param int samp_step: granularity used to round the sample budget.
     :param float est_hedge: hedging for the returned estimate.
     :param float adapt_hedge: hedging used when sizing the sample budget.
-    :param int max_samp: static cap on simulations (TPU fixed-shape budget).
+    :param int max_samp: static cap on simulations (fixed-shape budget under jit).
     :param bool adaptive: when True (default), accumulate ``samp_step``-size
         simulation chunks under a ``lax.while_loop`` until the worst-cell
         standard error meets ``error_tol`` (jit-compatible adaptivity —

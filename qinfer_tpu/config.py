@@ -3,12 +3,12 @@
 The reference library has no config system (all configuration is constructor
 kwargs — SURVEY.md §5). We keep that spirit: this module only holds numeric
 defaults that must be consistent across the whole engine (dtypes, epsilons),
-because on TPU the choice of ``float32`` vs ``float64`` is a hardware matter,
-not a per-call preference.
+because the choice of ``float32`` vs ``float64`` is a hardware matter, not a
+per-call preference.
 
-TPU-native stance:
-  * particles / weights / likelihoods default to ``float32`` — the native TPU
-    vector width. (``float64`` is software-emulated on TPU and ~10x slower.)
+Defaults:
+  * particles / weights / likelihoods default to ``float32`` — accelerators
+    run float64 at a fraction of the float32 rate.
   * accumulators that are sensitive to cancellation (log-evidence) are kept in
     ``float32`` but accumulated in log-space, which is well-conditioned.
   * integer outcomes use ``int32``.

@@ -4,7 +4,7 @@ Reference parity: ``src/qinfer/derived_models.py`` (SURVEY.md §2 #8) —
 ``DerivedModel``, ``PoisonedModel``, ``BinomialModel``, ``MultinomialModel``,
 ``MLEModel``, ``RandomWalkModel``, ``GaussianRandomWalkModel``.
 
-TPU-native stance: decorators stay pure pytree Modules, so a decorated model
+Design: decorators stay pure pytree Modules, so a decorated model
 passes through ``jit``/``scan`` exactly like a base model. The one
 shape-hazard is :class:`BinomialModel` with per-experiment ``n_meas``: the
 outcome grid must be static under jit, so the decorator carries a static
@@ -194,7 +194,7 @@ class PoisonedModel(DerivedModel):
     hedged-beta standard error an :class:`~qinfer_tpu.ale.ALEApproximateModel`
     would incur; in tol mode it is a constant ``tol``.
 
-    TPU-native: the engine threads a fresh PRNG key per update
+    The engine threads a fresh PRNG key per update
     (``wants_likelihood_key``), so poison noise is re-drawn every step even
     under ``jit``/``scan``; direct ``likelihood()`` calls without a key fall
     back to an instance-held key (never stored when traced, so closures
@@ -248,7 +248,7 @@ class BinomialModel(DerivedModel):
     — likelihood is ``binomial_pdf(n_meas, outcome, pr0)``; simulation draws
     binomials.
 
-    :param int n_meas_max: static upper bound on ``n_meas`` (TPU jit needs a
+    :param int n_meas_max: static upper bound on ``n_meas`` (jit needs a
         fixed outcome-grid shape for experiment design; updates themselves
         accept any count). Defaults to 128.
     """

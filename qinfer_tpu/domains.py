@@ -3,7 +3,7 @@
 Reference parity: ``src/qinfer/domains.py`` — ``Domain`` ABC with
 ``RealDomain``, ``IntegerDomain``, ``MultinomialDomain`` (SURVEY.md §2 #7).
 
-TPU-native stance: domains describe *static* shape information (number of
+Design: domains describe *static* shape information (number of
 possible outcomes, dtype) that the jit-compiled engine needs at trace time,
 plus jittable membership tests. Finite domains expose a dense ``values``
 array so outcome marginalization (``bayes_risk`` /

@@ -6,11 +6,11 @@ Reference parity: ``src/qinfer/expdesign.py`` (SURVEY.md §2 #13) —
 ``updater.bayes_risk`` over one field of the expparams via Nelder-Mead or
 CG with finite-difference gradients, keeping the best of stored guesses.
 
-TPU-native stance: the default optimizer is a **vectorized grid+refine
+Design: the default optimizer is a **vectorized grid+refine
 search** (``opt_algo=OptimizationAlgorithms.GRID``): the risk of hundreds of
 candidates is scored in ONE batched ``bayes_risk`` call (a single fused XLA
 reduction over particles × outcomes × candidates) and the grid zooms around
-the incumbent — far better use of the MXU than the reference's sequential
+the incumbent — far better use of the device than the reference's sequential
 scipy simplex, which evaluates one candidate per step. ``NM`` and ``CG``
 remain available for parity and call scipy on the host with device-side
 objective evaluations.
@@ -61,7 +61,7 @@ def select_candidate(key, scores, policy="greedy", epsilon=0.1,
     informationally-complete candidate grids it re-selects the currently
     most informative direction and under-explores the rest, measurably
     LOSING to uniform-random selection at long horizons (2-qubit state
-    tomography, docs/PERF_NOTES.md round-3 negative result; reference
+    tomography, an earlier negative result kept in git history; reference
     anchor ``src/qinfer/expdesign.py::ExperimentDesigner.
     design_expparams_field``, which shares the one-step-lookahead target).
     The stochastic policies here mix exploration back in while keeping the
@@ -113,10 +113,9 @@ def design_from_candidates(updater, candidate_eps, key=None,
     posterior and select ONE (the discrete-pool sibling of
     :meth:`ExperimentDesigner.design_expparams_field`, which optimizes a
     continuous field). This is the design loop the round-4 tomography
-    flagship runs per step — scoring the whole pool is one batched MXU
+    flagship runs per step — scoring the whole pool is one batched
     contraction, and the stochastic policies avoid greedy's axis
-    starvation on informationally-complete pools (docs/PERF_NOTES.md
-    round 4).
+    starvation on informationally-complete pools.
 
     :param updater: an :class:`~qinfer_tpu.smc.SMCUpdater`.
     :param candidate_eps: expparams pytree with leading axis = pool size.
@@ -226,7 +225,7 @@ class PoolDesigner:
 
 class OptimizationAlgorithms(enum.Enum):
     """Reference parity: ``expdesign.py::OptimizationAlgorithms`` (CG, NM)
-    plus the TPU-native batched GRID search."""
+    plus the batched GRID search."""
 
     NM = 0
     CG = 1

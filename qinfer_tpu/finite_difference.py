@@ -2,7 +2,7 @@
 
 Reference parity: ``src/qinfer/finite_difference.py::FiniteDifference``
 (SURVEY.md §2 #22) — used by :class:`~qinfer_tpu.abstract_model.ScoreMixin`
-and the CG experiment designer. On TPU most gradients come from autodiff;
+and the CG experiment designer. Most gradients here come from autodiff;
 this survives for black-box objectives (e.g. host-side optimizer callbacks).
 """
 

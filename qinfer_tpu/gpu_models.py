@@ -2,9 +2,8 @@
 
 Reference parity: ``src/qinfer/gpu_models.py`` — the reference keeps its
 OpenCL-accelerated ``AcceleratedPrecessionModel`` in a module of this name;
-the TPU-native implementation lives in :mod:`qinfer_tpu.ops.accelerated`
-(Pallas kernel instead of a PyOpenCL kernel string) and is re-exported here
-so reference users find it at the expected path.
+the implementation lives in :mod:`qinfer_tpu.ops.accelerated` and is
+re-exported here so reference users find it at the expected path.
 """
 
 from .ops.accelerated import AcceleratedPrecessionModel

@@ -4,7 +4,7 @@ Reference parity: ``src/qinfer/heuristics.py`` (SURVEY.md §2 #14) —
 ``Heuristic`` ABC, ``PGH`` (particle guess heuristic) and
 ``ExpSparseHeuristic``.
 
-TPU-native stance: every heuristic also exposes a **pure keyed form**
+Design: every heuristic also exposes a **pure keyed form**
 ``heuristic.propose(key, weights, locations, idx_exp) -> eps_dict`` that is
 jittable, so the whole adaptive loop (heuristic → simulate → update) can run
 inside one ``lax.scan`` (see :mod:`qinfer_tpu.perf_testing`). The

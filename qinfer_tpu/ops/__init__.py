@@ -1,38 +1,19 @@
-"""Pallas TPU kernels for the SMC hot loops.
+"""Resampling primitives and the reference-parity accelerated model.
 
 The reference's single native-code artifact is an OpenCL likelihood kernel
 (``src/qinfer/gpu_models.py::AcceleratedPrecessionModel``, SURVEY.md §2
-#18). The TPU-native equivalents live here:
+#18). Its counterparts here are plain ``jax.numpy`` that XLA compiles:
 
-* :mod:`qinfer_tpu.ops.precession` — fused likelihood × weight ×
-  normalization/ESS kernel for the precession family (one HBM pass computes
-  the new weights AND the three global reductions the engine needs).
 * :mod:`qinfer_tpu.ops.resample` — systematic-resampling ancestor
-  selection via block-scanned CDF inversion.
+  selection (counting formulation of the CDF inversion).
 * :mod:`qinfer_tpu.ops.accelerated` — ``AcceleratedPrecessionModel``, the
-  drop-in parity class backed by the Pallas kernel.
-* :mod:`qinfer_tpu.ops.streaming_resample` — streaming-merge resample
-  fill (int8 one-hot MXU selection; replaces the XLA scatter floor).
-* :mod:`qinfer_tpu.ops.jacobi` — lane-parallel batched small-symmetric
-  eigh + fused PSD projection (particles on the vector lanes; powers
-  ``TomographyModel.canonicalize`` and ``DiffusiveTomographyModel``).
-
-All kernels run in ``interpret=True`` mode off-TPU so the test suite (CPU,
-virtual mesh) exercises identical code paths.
+  reference-name parity class.
 """
 
-from .precession import fused_precession_update, precession_pr0
 from .resample import systematic_resample_indices
 from .accelerated import AcceleratedPrecessionModel
-from .streaming_resample import streaming_resample_locations
-from .jacobi import jacobi_eigh_lanes, jacobi_project_lanes
 
 __all__ = [
-    "fused_precession_update",
-    "precession_pr0",
     "systematic_resample_indices",
     "AcceleratedPrecessionModel",
-    "streaming_resample_locations",
-    "jacobi_eigh_lanes",
-    "jacobi_project_lanes",
 ]

@@ -1,75 +1,36 @@
-"""Pallas-accelerated precession model.
+"""Reference-parity precession model with the reference's precision check.
 
 Reference parity: ``src/qinfer/gpu_models.py::AcceleratedPrecessionModel``
 (SURVEY.md §2 #18) — the reference embeds an OpenCL C kernel computing
 cos²(ωt/2) over a particle × experiment grid and uploads/downloads buffers
-via PyOpenCL. Here the kernel is a Pallas TPU kernel
-(:func:`qinfer_tpu.ops.precession.precession_pr0`) and there is no host
-round-trip: arrays stay on device and the call composes with ``jit``.
+via PyOpenCL. Here the plain likelihood already runs on the device inside
+the compiled update: XLA fuses cos² × weight and the step's reductions, and
+a hand-written fused kernel measured no faster end to end on the GPU
+(PERF.md, "Kernels on H100"). The class keeps the reference's name and its
+float32-only contract.
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
-
 from ..test_models import SimplePrecessionModel
-from .precession import (
-    precession_pr0,
-    fused_precession_update,
-    _LANES,
-    _ROWS,
-)
 
 __all__ = ["AcceleratedPrecessionModel"]
 
 
 class AcceleratedPrecessionModel(SimplePrecessionModel):
-    """Drop-in :class:`~qinfer_tpu.test_models.SimplePrecessionModel` whose
-    likelihood table is computed by the fused Pallas kernel.
+    """Drop-in :class:`~qinfer_tpu.test_models.SimplePrecessionModel` with
+    the reference's ``precision`` argument.
 
     Reference parity: ``gpu_models.py::AcceleratedPrecessionModel
     (precision='float')`` — float32 only, matching the reference's default
-    precision. Particle counts that are not a multiple of the kernel tile
-    (``16 × 128 = 2048``) fall back to the plain XLA likelihood.
+    precision.
     """
 
     def __init__(self, precision="float", min_freq=0.0):
         super().__init__(min_freq=min_freq)
         if precision not in ("float", "single", "float32"):
             raise ValueError(
-                "TPU kernels are float32; use SimplePrecessionModel for "
-                "float64 (requires jax_enable_x64)")
+                "AcceleratedPrecessionModel is float32; use "
+                "SimplePrecessionModel for float64 (requires "
+                "jax_enable_x64)")
         self.precision = "float"
-
-    def likelihood(self, outcomes, modelparams, expparams):
-        self._bump("_call_count")
-        modelparams = jnp.atleast_2d(modelparams)
-        n = modelparams.shape[0]
-        if n % (_ROWS * _LANES):
-            return super().likelihood(outcomes, modelparams, expparams)
-        eps = self.canonicalize_expparams(expparams)
-        ts = eps["t"]
-        omega = modelparams[:, 0]
-        pr0 = jnp.stack(
-            [precession_pr0(omega, ts[j]) for j in range(ts.shape[0])],
-            axis=1)  # (n, n_e)
-        return self.pr0_to_likelihood_array(outcomes, pr0)
-
-    def fused_reweight(self, weights, locations, outcome, expparams):
-        """Engine hook: the whole reweighting step (likelihood × weight ×
-        normalization + ESS partials) as ONE Pallas pass over HBM.
-
-        The SMC engine calls this instead of ``likelihood`` when a model
-        provides it (``smc.py::_reweight``). Contract: returns
-        ``(unnormalized_hyp_weights, linear_norm)`` — the engine performs
-        the normalization and takes the log for the evidence record — or
-        ``None`` to fall back to the likelihood path.
-        """
-        n = locations.shape[0]
-        if n % (_ROWS * _LANES):
-            return None  # caller falls back to the likelihood path
-        eps = self.canonicalize_expparams(expparams)
-        hyp, norm, _, _ = fused_precession_update(
-            locations[:, 0], weights, eps["t"][0],
-            jnp.asarray(outcome).reshape(-1)[0], normalize=False)
-        return hyp, norm  # unnormalized hyp + linear norm

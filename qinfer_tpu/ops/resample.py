@@ -3,11 +3,10 @@
 The second SMC hot loop (SURVEY.md §3.2). Systematic resampling inverts the
 weight CDF at stratified positions ``(i + u) / n``. Because both the CDF and
 the positions are sorted, inversion is a linear merge — O(n) with
-sequential structure, which maps poorly onto the VPU directly; the
-TPU-native formulation used here is:
+sequential structure; the data-parallel formulation used here is:
 
-1. one ``cumsum`` over the weights (XLA's scan is log-depth, bandwidth
-   bound — optimal on TPU),
+1. one ``cumsum`` over the weights (XLA's scan is log-depth and bandwidth
+   bound),
 2. a **counting formulation** of the merge: ancestor multiplicities are
    ``m_i = ceil(n·cdf_i − u) − ceil(n·cdf_{i−1} − u)``, a pure elementwise
    pass, and
@@ -19,11 +18,10 @@ multinomial draw (``src/qinfer/resamplers.py::LiuWestResampler.__call__``)
 with the lower-variance stratified scheme (PAPERS.md: Murray et al.,
 "Parallel resampling in the particle filter").
 
-The production engine uses the merge-rank / gather-free formulations in
+The production engine uses the counting formulations in
 :mod:`qinfer_tpu.resamplers`; this module keeps the counting formulation
 (`ancestor_multiplicities`) as the reference statement of the algorithm
-and for diagnostics — a fused Pallas streaming-merge kernel remains a
-round-2 lever (docs/PERF_NOTES.md "Next levers").
+and for diagnostics.
 """
 
 from __future__ import annotations
@@ -61,9 +59,9 @@ def systematic_resample_indices(key, weights):
     """Ancestor indices (sorted) for systematic resampling.
 
     Delegates to the merge-rank CDF inversion in
-    :func:`qinfer_tpu.resamplers.systematic_ancestors` (one bitonic sort,
-    no searchsorted — see that docstring for the TPU cost analysis); the
-    stratified positions are ascending, so the result is already sorted.
+    :func:`qinfer_tpu.resamplers.systematic_ancestors` (one sort, no
+    searchsorted); the stratified positions are ascending, so the result
+    is already sorted.
 
     :return: (n,) int32 ancestor indices, sorted ascending.
     """

@@ -2,11 +2,11 @@
 
 Reference parity: ``src/qinfer/parallel.py`` (SURVEY.md §2 #17) — the
 reference scatters the particle axis over ipyparallel engines
-(``DirectViewParallelizedModel``). The TPU-native replacement is a
+(``DirectViewParallelizedModel``). The replacement here is a
 **mesh-sharded particle ensemble**: the engine's arrays carry a
 ``NamedSharding`` over a 1-D ``particles`` mesh axis, and the exact same
-jitted update/estimator code runs SPMD across all chips with XLA inserting
-``psum`` / ``all_gather`` collectives over ICI (SURVEY.md §5 "Distributed
+jitted update/estimator code runs SPMD across all devices with XLA inserting
+``psum`` / ``all_gather`` collectives (SURVEY.md §5 "Distributed
 communication backend").
 
 ``DirectViewParallelizedModel`` is also provided for API parity (and for

@@ -5,7 +5,7 @@ wraps a serial model and scatters the **modelparams (particle) axis** over
 the engines of a DirectView-like object (``scatter``/``gather``/``apply``/
 ``__len__``), falling back to serial evaluation below a threshold.
 
-On TPU this pattern is superseded by mesh sharding
+On accelerators this pattern is superseded by mesh sharding
 (:class:`~qinfer_tpu.parallel.mesh.ParticleMesh`) — kept here because (a)
 the reference API promises it, (b) tests exercise engine-pool semantics with
 serial mock views exactly like the reference's test suite (SURVEY.md §4

@@ -3,7 +3,7 @@
 The scale axis of SMC inference is the particle count (SURVEY.md §5): every
 engine reduction (weight normalization, ESS, moments, Bayes risk) is a sum
 over particles, so sharding the particle axis over a 1-D mesh makes the
-whole engine SPMD with ``psum``-shaped collectives — the TPU-native
+whole engine SPMD with ``psum``-shaped collectives — the device-mesh
 equivalent of ``src/qinfer/parallel.py::DirectViewParallelizedModel``'s
 scatter/gather and of ``jax.distributed`` replacing the ipyparallel
 controller.

@@ -48,8 +48,7 @@ __all__ = ["DistributedLiuWestResampler", "shard_systematic_ancestors",
 
 def _local_systematic(u, weights, n_out):
     """Systematic ancestors within one shard — the same sort-free counting
-    formulation as the single-device path (searchsorted lowers to rounds
-    of random HBM gathers on TPU even at shard-local sizes)."""
+    formulation as the single-device path."""
     from ..resamplers import counting_ancestors_from_u
 
     return counting_ancestors_from_u(u, weights, n_out)

@@ -5,17 +5,16 @@ Reference parity: ``src/qinfer/perf_testing.py`` (SURVEY.md §2 #15) —
 timing / resampling per step) and ``perf_test_multiple`` (fan-out over
 trials with an injectable ``apply``).
 
-TPU-native stance: two execution paths.
+Two execution paths.
 
 * :func:`perf_test` — host-loop parity path: works with any heuristic,
   returns the reference's structured per-step record array (with true
   per-step wall times).
-* :func:`perf_test_scan` — the TPU path: the ENTIRE adaptive loop
+* :func:`perf_test_scan` — the device path: the ENTIRE adaptive loop
   (heuristic proposal, outcome simulation at the true parameters, fused SMC
   update with conditional resampling) is one ``lax.scan`` compiled into a
   single XLA program; trials vmap/shard over the mesh. This is the loop the
-  benchmark (bench.py) uses to chase the ≥1e7 particle-updates/s/chip
-  north star, and the engine the reference's ipyparallel trial fan-out
+  benchmark (bench.py) runs, and the engine the reference's ipyparallel trial fan-out
   (``perf_testing.py::perf_test_multiple(apply=view.apply)``) maps onto.
 """
 
@@ -151,7 +150,7 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
                    seed=0, sharding=None):
     """Fully-compiled adaptive inference: one ``lax.scan`` over experiments.
 
-    The TPU-native superset of :func:`perf_test` for jittable heuristics
+    The compiled superset of :func:`perf_test` for jittable heuristics
     (PGH, ExpSparse, Identity): zero host round-trips inside the loop. Use
     ``jax.vmap`` / mesh sharding over trials for the reference's
     trial-parallel mode.
@@ -218,7 +217,7 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
                          return_runner=False):
     """Trial-parallel fully-compiled adaptive inference.
 
-    The TPU-native replacement for the reference's ipyparallel trial
+    The single-program replacement for the reference's ipyparallel trial
     fan-out (``perf_testing.py::perf_test_multiple(apply=view.apply)``):
     every trial runs the same compiled PGH→simulate→update ``lax.scan``,
     and trials are distributed over devices.

@@ -20,7 +20,7 @@ coordinates the engine already uses (and full-rank BCSZ is the analogous
 flat measure on the Choi section of CPTP channels), so the MH ratio
 reduces to the data-likelihood ratio plus a validity gate.
 
-TPU-native shape discipline: the record is a fixed-size buffer with a
+Shape discipline: the record is a fixed-size buffer with a
 step mask; the per-move log-likelihood is one vmapped likelihood pass
 (T × n static shape); moves are a fixed-K ``lax.scan``. Everything
 composes into the engine's fused scanned step.
@@ -154,7 +154,7 @@ def binomial_record_log_likelihood(two_outcome_model, locations, succ,
     accumulation; f32 saturates at 2^24), cast to the likelihood dtype at
     the contraction below; ``eps_pool`` is an expparams
     pytree with leading axis E. Padding rows with ``trials = succ = 0``
-    contribute exactly 0 — no mask needed. The MXU-friendly form: the
+    contribute exactly 0 — no mask needed. The matmul form: the
     (n, E) log-probability matrices contract against the statistics
     vectors as two matvecs.
 
@@ -191,10 +191,9 @@ def _mh_moves(model, prior, key, locations, record_ll, n_moves,
     every ACCEPTED proposal already passed ``model.are_models_valid``, so
     the ensemble is within the model's validity tolerance without it —
     the pass is strict-constraint hygiene (e.g. exact-PSD projection),
-    not correctness. On TPU tomography configs past embedded d = 16 the
-    projection is ~90% of the whole move-call cost (docs/PERF_NOTES.md
-    round 4), so cost-sensitive callers disable it and accept locations
-    within ``psd_tol`` of the cone.
+    not correctness. At high embedded dimension the projection can
+    dominate the move call, so cost-sensitive callers disable it and
+    accept locations within ``psd_tol`` of the cone.
 
     Proposal: Gaussian random walk with covariance
     ``(proposal_scale² / d) · Σ_ensemble`` (the Roberts-Gelman-Gilks

@@ -3,16 +3,16 @@
 Reference parity: ``src/qinfer/resamplers.py`` (SURVEY.md §2 #5) —
 ``LiuWestResampler(a, h, maxiter, postselect, zero_cov_comp, kernel)``.
 
-TPU-native stance
------------------
+Design
+------
 * The resampler is a **pure keyed function** ``(model, key, weights,
   locations) -> new_locations`` so it composes into the jitted / scanned
   update step (the reference mutates NumPy arrays in place).
 * Ancestor selection defaults to **systematic resampling** (single uniform,
   stratified cumsum inversion via ``searchsorted``) — lower variance than the
   reference's multinomial draw (``resamplers.py::LiuWestResampler.__call__``
-  uses cumsum + searchsorted on iid uniforms) and friendlier to a Pallas
-  implementation; ``kind='multinomial'`` reproduces the reference scheme.
+  uses cumsum + searchsorted on iid uniforms); ``kind='multinomial'``
+  reproduces the reference scheme.
 * The reference's unbounded rejection loop over ``model.are_models_valid``
   becomes a **fixed-round masked redraw** (static shape under jit): invalid
   proposals are redrawn up to ``maxiter`` rounds; slots still invalid fall
@@ -64,14 +64,11 @@ def systematic_ancestors(key, weights, n_out=None):
     weight CDF. Lower variance than multinomial resampling (see PAPERS.md,
     Murray et al., "Parallel resampling in the particle filter").
 
-    TPU-native formulation: because both the CDF and the stratified
-    positions are sorted, the inversion is computed as a **merge rank** —
-    one stable sort of the concatenated sequences plus a scan — instead of
-    ``searchsorted``. On TPU, searchsorted lowers to ~log₂(n) rounds of
-    random HBM gathers (measured 334 ms at 2²¹ particles) while the bitonic
-    sort is regular-access (measured 30 ms): an 11× win on the resampling
-    hot path. Exact same output as ``searchsorted(cdf, positions)``.
-    Kept for comparison; the production engine now uses the sort-free
+    Because both the CDF and the stratified positions are sorted, the
+    inversion is computed as a **merge rank** — one stable sort of the
+    concatenated sequences plus a scan — instead of ``searchsorted``.
+    Exact same output as ``searchsorted(cdf, positions)``. Kept for
+    comparison; the production engine uses the sort-free
     :func:`systematic_ancestors_counting`.
     """
     n = weights.shape[0]
@@ -103,10 +100,9 @@ def systematic_resample_locations(key, weights, locations):
     filled coordinates to their output slots.
 
     All passes (sort, scan, scatter) are regular-access, so this avoids the
-    ``x[ancestors]`` random HBM gather (~20 ms at 2²¹ particles on TPU
-    v5e) that dominates the classic formulation after the sort. Kept for
-    comparison and diagnostics; the production engine now uses the even
-    cheaper sort-free :func:`systematic_resample_locations_counting`.
+    ``x[ancestors]`` gather of the classic formulation. Kept for
+    comparison and diagnostics; the production engine uses the sort-free
+    :func:`systematic_resample_locations_counting`.
 
     :return: ``(n, d)`` resampled locations (same law as
         ``locations[systematic_ancestors(key, weights)]``).
@@ -184,8 +180,8 @@ def counting_multiplicities_from_u(u, weights, n_out):
     upper = jnp.ceil(n_out * cdf - u)
     # XLA's cumsum is a PARALLEL scan: float reassociation can make the
     # prefix sums (and hence the ceilings) dip non-monotonically by one
-    # ulp, which would produce m = -1 / overlapping offsets. cummax is the
-    # native TPU scan — restoring monotonicity costs one cheap pass.
+    # ulp, which would produce m = -1 / overlapping offsets. One cheap
+    # cummax pass restores monotonicity.
     upper = jax.lax.cummax(upper)
     lower = jnp.concatenate([jnp.zeros((1,), upper.dtype), upper[:-1]])
     m = (upper - lower).astype(jnp.int32)
@@ -198,8 +194,7 @@ def _scatter_indices(m, offsets, n_out):
     routed to DISTINCT out-of-bounds slots (``n_out + i``): every index is
     provably unique, which lets the scatters below carry
     ``unique_indices=True`` — without it XLA must assume collisions and
-    serialize the scatter (measured ~20 ms per resample at 2²¹ on TPU
-    v5e; unique scatters vectorize)."""
+    serialize the scatter."""
     n = m.shape[0]
     return jnp.where(m > 0, offsets,
                      n_out + jnp.arange(n, dtype=jnp.int32))
@@ -220,33 +215,31 @@ def counting_locations_from_u(u, weights, locations, strategy=None):
     """Sort-free systematic resample-to-locations with an explicit uniform
     offset (see :func:`systematic_resample_locations_counting`).
 
-    Three fill strategies compute the same expansion of survivors into
-    their contiguous output spans (selected by backend/shape at trace
-    time; all benchmarked on TPU v5e at 2^21 — docs/PERF_NOTES.md):
+    Three strategies compute the same expansion of survivors into their
+    contiguous output spans (chosen per backend and dimension by
+    :func:`_default_fill_strategy` unless pinned):
 
-    * **``pallas`` (TPU default)** — the streaming-merge kernel
-      (:func:`qinfer_tpu.ops.streaming_resample.
-      streaming_resample_locations`): no scatter at all; replaces the
-      ~20-30 ms XLA scatter floor with contiguous one-hot-matmul tile
-      expansion. Bit-identical to ``scan``.
+    * ``gather`` — scatter each survivor's index at its first slot,
+      forward-fill the indices with a ``cummax`` and gather the rows
+      ``locations[ancestors]`` (the ancestors are sorted, so the gather
+      reads memory nearly in order).
     * ``scan`` — scatter survivors at their first slot + an
-      ``associative_scan`` "last-written-wins" forward fill (the TPU
-      fallback for non-conforming shapes).
+      ``associative_scan`` "last-written-wins" forward fill.
     * ``telescope`` — scatter-add ``+x_i`` at each survivor's first slot
-      and ``-x_i`` at one-past-its-last + cumsum — 43x faster than the
+      and ``-x_i`` at one-past-its-last + cumsum — far cheaper than the
       generic scan recursion on CPU; float32 cancellation ~sqrt(n)*eps
       relative to particle spread (coordinates are mean-centered).
     """
     n, d = locations.shape
     m, offsets = counting_multiplicities_from_u(u, weights, n)
     if strategy is None:
-        strategy = _default_fill_strategy(n)
-    if strategy == "pallas":
-        from .ops.streaming_resample import streaming_resample_locations
-
-        return streaming_resample_locations(m, offsets, locations)
-    alive = m > 0
+        strategy = _default_fill_strategy(d)
     start = _scatter_indices(m, offsets, n)
+    if strategy == "gather":
+        anc = jnp.zeros((n,), jnp.int32).at[start].set(
+            jnp.arange(n, dtype=jnp.int32), mode="drop", unique_indices=True)
+        return locations[jax.lax.cummax(anc)]
+    alive = m > 0
     if strategy == "telescope":
         mu = jnp.mean(locations, axis=0)
         xc = jnp.where(alive[:, None], locations - mu[None, :], 0.0)
@@ -305,27 +298,19 @@ def systematic_resample_locations_counting(key, weights, locations,
         jax.random.uniform(key, ()), weights, locations, strategy=strategy)
 
 
-def _default_fill_strategy(n):
+def _default_fill_strategy(d):
     """The ONE place that decides how a counting fill is materialized for
-    the current backend (duplicating this logic previously let the
-    resampler and the fill disagree):
+    the current backend and particle dimension ``d``:
 
-    * CPU → ``telescope`` (the generic odd/even scan recursion crawls);
-    * TPU with at least one DMA chunk of particles → the Pallas
-      ``pallas`` streaming kernel (pads any n/d internally);
-    * anything else → ``scan`` (never ``pallas``: the kernel only lowers
-      natively on TPU, and interpret-mode at engine sizes is effectively
-      a hang).
+    * CPU → ``telescope`` at d ≤ 4 (the generic odd/even scan recursion
+      crawls there), ``gather`` above;
+    * GPU → ``gather`` at every d: exact, and faster than ``scan`` at
+      every shape measured; ``telescope`` is faster at d ≤ 3 but inexact
+      (PERF.md, "Kernels on H100").
     """
-    backend = jax.default_backend()
-    if backend == "cpu":
+    if jax.default_backend() == "cpu" and d <= 4:
         return "telescope"
-    if backend == "tpu":
-        from .ops.streaming_resample import _B, _F
-
-        if n >= _B * _F:
-            return "pallas"
-    return "scan"
+    return "gather"
 
 
 def multinomial_ancestors(key, weights, n_out=None):
@@ -379,9 +364,9 @@ class LiuWestResampler(Resampler):
     :param float zero_cov_comp: diagonal jitter added when Σ is singular.
     :param str kind: ``'systematic'`` (default) or ``'multinomial'``.
     :param fill_strategy: override the backend-selected ancestor-fill
-        strategy (``'pallas'``/``'scan'``/``'telescope'``; None = auto).
-        Benchmarks use this to measure the Pallas-vs-XLA fill delta
-        through the full engine.
+        strategy (``'gather'``/``'scan'``/``'telescope'``; None = auto).
+        Benchmarks use this to compare the fills through the full
+        engine.
     :param bool canonicalize: apply ``model.canonicalize`` to the output
         ensemble (default, reference parity). ``False`` is the
         validity-tolerant contract for resample-MOVE configs (round 5):
@@ -389,16 +374,16 @@ class LiuWestResampler(Resampler):
         (postselection + ancestor fallback), and the Metropolis moves
         that follow re-gate validity per proposal and re-apply the
         strict projection at the end of the move block — so the
-        intermediate strict projection here (~88 ms per event at
-        embedded d = 32) is redundant. The engine selects this
+        intermediate strict projection here is redundant. The engine
+        selects this
         automatically when ``n_mcmc_moves > 0`` AND the move block's
         own projection is active (``mcmc_canonicalize=True``).
-        MEASURED WARNING (PERF_NOTES round 5): never combine
-        ``canonicalize=False`` with a move block that also skips its
-        projection — with no strict projection per resample-move event
-        the 255-dim flagship posterior collapses (0.98 → 0.48-0.65);
-        the strict projection is per-event correctness at high
-        dimension, not hygiene.
+        WARNING: never combine ``canonicalize=False`` with a move block
+        that also skips its projection — with no strict projection per
+        resample-move event the 255-dim flagship posterior collapses
+        (fidelity 0.98 → 0.48-0.65 in the earlier measurements kept in
+        git history); the strict projection is per-event correctness at
+        high dimension, not hygiene.
     """
 
     def __init__(self, a=0.98, h=None, maxiter=10, debug=False,
@@ -414,9 +399,9 @@ class LiuWestResampler(Resampler):
         if kind not in ("systematic", "multinomial"):
             raise ValueError("kind must be 'systematic' or 'multinomial'")
         self.kind = kind
-        if fill_strategy not in (None, "pallas", "scan", "telescope"):
+        if fill_strategy not in (None, "gather", "scan", "telescope"):
             raise ValueError(
-                "fill_strategy must be None, 'pallas', 'scan' or "
+                "fill_strategy must be None, 'gather', 'scan' or "
                 "'telescope'")
         self.fill_strategy = fill_strategy
         self.canonicalize = bool(canonicalize)
@@ -436,11 +421,9 @@ class LiuWestResampler(Resampler):
         mu, cov = weighted_moments(w, x)
         cov = cov + self.zero_cov_comp * jnp.eye(d, dtype=cov.dtype)
         # Cholesky, not sqrtm: any S with S Sᵀ = Σ gives the same proposal
-        # law, and cholesky is a single fused pass on TPU whereas an
-        # eigh-based sqrtm (QDWH) costs hundreds of sequential micro-steps —
-        # it dominated the whole resample at 10⁶+ particles. The jitter
-        # above makes Σ strictly PD; a NaN-producing failure (pathological
-        # Σ) falls back to the eigh route.
+        # law, and one Cholesky factor is cheaper than an eigh-based
+        # sqrtm. The jitter above makes Σ strictly PD; a NaN-producing
+        # failure (pathological Σ) falls back to the eigh route.
         L = jnp.linalg.cholesky(cov)
         L = jax.lax.cond(
             jnp.any(jnp.isnan(L)),
@@ -450,20 +433,9 @@ class LiuWestResampler(Resampler):
         S = L * self.h
 
         if self.kind == "systematic":
-            # fill (gather-free) whenever the Pallas streaming kernel is
-            # eligible (it beats the row gather at ANY d — no random HBM
-            # access at all), at small d where the telescoping/scan fill
-            # beats the row gather, or when the caller pinned a strategy
-            strategy = self.fill_strategy or _default_fill_strategy(n)
-            use_fill = (d <= 4 or strategy == "pallas"
-                        or self.fill_strategy is not None)
-            if use_fill:
-                # sort-free AND gather-free: counting formulation +
-                # streaming/telescoping fill
-                x_anc = systematic_resample_locations_counting(
-                    k_anc, w, x, strategy=strategy)
-            else:
-                x_anc = x[systematic_ancestors_counting(k_anc, w)]
+            x_anc = systematic_resample_locations_counting(
+                k_anc, w, x,
+                strategy=self.fill_strategy or _default_fill_strategy(d))
         else:
             x_anc = x[multinomial_ancestors(k_anc, w)]
         centers = self.a * x_anc + (1.0 - self.a) * mu[None, :]

@@ -8,9 +8,9 @@ estimation with T2 decoherence nuisance parameter").
 
 All likelihoods are pure ``jax.numpy`` broadcasting over
 ``(n_outcomes, n_models, n_expparams)`` so the engine can jit/fuse/shard
-them; the hot precession likelihood additionally has a fused Pallas TPU
-kernel in :mod:`qinfer_tpu.ops` (the rebuild's analogue of the reference's
-OpenCL ``gpu_models.py``).
+them; :mod:`qinfer_tpu.ops` keeps the reference-name
+``AcceleratedPrecessionModel`` (the analogue of the reference's OpenCL
+``gpu_models.py``).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ density-operator priors, likelihood models, measurement heuristics and
 plotting. The reference requires **QuTiP**; this rebuild represents
 operator bases as stacked complex JAX arrays, so Ginibre/Haar sampling,
 PSD checks (``eigh``) and the Born-rule likelihood are all native XLA and
-run on TPU (SURVEY.md §7 "Tomography without QuTiP").
+run on the device (SURVEY.md §7 "Tomography without QuTiP").
 """
 
 from .bases import (

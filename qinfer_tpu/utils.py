@@ -8,10 +8,10 @@ Reference parity: ``src/qinfer/utils.py`` (``binomial_pdf``, ``multinomial_pdf``
 ``src/qinfer/finite_difference.py::FiniteDifference`` lives in
 :mod:`qinfer_tpu.finite_difference`.
 
-TPU-native stance: everything that sits on the SMC hot path (weighted moments,
+Design: everything that sits on the SMC hot path (weighted moments,
 pmfs, simplex transforms, PSD matrix square roots) is pure ``jax.numpy`` and
-jit/vmap/shard_map-compatible, with reductions phrased as matmuls so XLA can
-put them on the MXU. Small host-side geometry (MVEE, ellipsoid volume) stays
+jit/vmap/shard_map-compatible, with reductions phrased as matmuls. Small
+host-side geometry (MVEE, ellipsoid volume) stays
 NumPy/SciPy, exactly as in the reference, because it runs once on a handful of
 hull vertices, not per-particle.
 """
@@ -118,7 +118,7 @@ def sample_multinomial(key, N, p, shape=()):
 
 # ---------------------------------------------------------------------------
 # Weighted particle moments — the workhorse reductions of the SMC engine.
-# Phrased as matmuls so XLA maps them onto the MXU at large particle counts.
+# Phrased as matmuls (one library GEMM each at large particle counts).
 # ---------------------------------------------------------------------------
 
 def outer_product(x):
@@ -157,9 +157,9 @@ def particle_covariance_mtx(weights, locations):
     Reference parity: ``src/qinfer/utils.py::particle_covariance_mtx`` (same
     definition: plain weighted second central moment, no Bessel correction).
 
-    Implemented as  Xᵀ diag(w) X − μμᵀ  in centred form — one MXU matmul.
+    Implemented as  Xᵀ diag(w) X − μμᵀ  in centred form — one matmul.
     Jitted: host-facing callers (``est_covariance_mtx``) otherwise pay one
-    remote-backend dispatch per op (PERF_NOTES rule #9).
+    dispatch per op.
     """
     weights = jnp.asarray(weights)
     locations = jnp.asarray(locations)
@@ -193,7 +193,7 @@ def sqrtm_psd(A, eps=1e-12):
     eigenvalue clipping.
 
     The reference uses ``scipy.linalg.sqrtm`` with ad-hoc PSD fix-ups
-    (``src/qinfer/resamplers.py::LiuWestResampler.__call__``); on TPU an
+    (``src/qinfer/resamplers.py::LiuWestResampler.__call__``); on device an
     ``eigh`` is the natural primitive and the clip handles the same
     numerically-indefinite covariance cases.
     """

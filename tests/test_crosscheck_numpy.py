@@ -77,14 +77,12 @@ def _moments(w, x):
     return mu, cov
 
 
-def _crosscheck(tpu_updater, np_likelihood, np_prior, np_valid,
-                outcomes, eps_list, eps_batch, n_particles, n_ref_seeds=8,
-                sd_rtol=0.35):
-    tpu_updater.batch_update(jnp.asarray(outcomes), eps_batch)
-    mu_t = np.asarray(tpu_updater.est_mean(), dtype=np.float64)
-    sd_t = np.sqrt(np.diag(np.asarray(
-        tpu_updater.est_covariance_mtx(), dtype=np.float64)))
-
+def compare_with_oracle(mu_t, sd_t, np_likelihood, np_prior, np_valid,
+                        outcomes, eps_list, n_particles, n_ref_seeds=8,
+                        sd_rtol=0.35):
+    """Assert that posterior means ``mu_t`` and standard deviations
+    ``sd_t`` agree with ``n_ref_seeds`` runs of the float64 NumPy engine
+    at ``n_particles`` on the same record; return the diagnostics."""
     mus, sds = [], []
     for s in range(n_ref_seeds):
         w, x = numpy_smc(np_likelihood, np_prior, np_valid,
@@ -100,47 +98,97 @@ def _crosscheck(tpu_updater, np_likelihood, np_prior, np_valid,
     # spread estimate with a floor at 10% of the posterior sd
     se = np.maximum(mus.std(axis=0, ddof=1), 0.1 * sds.mean(axis=0))
     z = np.abs(mu_t - mu_ref) / (np.sqrt(2.0) * se)
-    assert np.all(z < 4.0), (
-        f"posterior means disagree beyond MC error: ours {mu_t}, "
-        f"NumPy-f64 {mu_ref} ± {se}, z = {z}")
+    # explicit raises: chip_smoke.py relies on these checks outside pytest
+    if not np.all(z < 4.0):
+        raise AssertionError(
+            f"posterior means disagree beyond MC error: ours {mu_t}, "
+            f"NumPy-f64 {mu_ref} ± {se}, z = {z}")
     rel = np.abs(sd_t - sds.mean(axis=0)) / sds.mean(axis=0)
-    assert np.all(rel < sd_rtol), (
-        f"posterior sds disagree: ours {sd_t}, ref {sds.mean(axis=0)}")
+    if not np.all(rel < sd_rtol):
+        raise AssertionError(
+            f"posterior sds disagree: ours {sd_t}, ref {sds.mean(axis=0)}")
+    return {"mean": mu_t, "mean_ref": mu_ref, "z": z, "sd": sd_t,
+            "sd_ref": sds.mean(axis=0), "sd_rel_err": rel}
+
+
+def posterior_moments(updater):
+    """float64 posterior mean and standard deviations of an updater."""
+    mu = np.asarray(updater.est_mean(), dtype=np.float64)
+    sd = np.sqrt(np.diag(np.asarray(updater.est_covariance_mtx(),
+                                    dtype=np.float64)))
+    return mu, sd
+
+
+def _crosscheck(updater, np_likelihood, np_prior, np_valid,
+                outcomes, eps_list, eps_batch, n_particles, n_ref_seeds=8,
+                sd_rtol=0.35):
+    updater.batch_update(jnp.asarray(outcomes), eps_batch)
+    mu_t, sd_t = posterior_moments(updater)
+    compare_with_oracle(mu_t, sd_t, np_likelihood, np_prior, np_valid,
+                        outcomes, eps_list, n_particles, n_ref_seeds,
+                        sd_rtol)
 
 
 # ---------------------------------------------------------------------------
 # BASELINE config 1: SimplePrecession + Binomial counts, 5k particles
 # ---------------------------------------------------------------------------
 
-def test_crosscheck_precession_binomial():
-    n_particles = 5000
-    n_shots = 10
-    true_omega = 0.57
-    ts = np.asarray([(9 / 8) ** k / 4 for k in range(30)],
-                    dtype=np.float64)
+class OracleProblem:
+    """A fixed data record with the device model and the float64 NumPy
+    oracle's likelihood, prior sampler and validity test for it."""
 
+    def __init__(self, model, prior, np_likelihood, np_prior, np_valid,
+                 outcomes, eps_list, eps_batch):
+        self.model = model
+        self.prior = prior
+        self.np_likelihood = np_likelihood
+        self.np_prior = np_prior
+        self.np_valid = np_valid
+        self.outcomes = outcomes
+        self.eps_list = eps_list
+        self.eps_batch = eps_batch
+
+    def check(self, updater, n_ref_particles, n_ref_seeds=8, sd_rtol=0.35):
+        """Compare ``updater``'s posterior (already conditioned on the
+        record) with the oracle at ``n_ref_particles``."""
+        mu_t, sd_t = posterior_moments(updater)
+        return compare_with_oracle(
+            mu_t, sd_t, self.np_likelihood, self.np_prior, self.np_valid,
+            self.outcomes, self.eps_list, n_ref_particles, n_ref_seeds,
+            sd_rtol)
+
+
+def precession_binomial_problem(n_exp=30, n_shots=10, true_omega=0.57):
+    """SimplePrecession + binomial counts at PGH-like growing times."""
+    from scipy.stats import binom
+
+    ts = np.asarray([(9 / 8) ** k / 4 for k in range(n_exp)],
+                    dtype=np.float64)
     # one fixed data record, generated once
     rng = np.random.default_rng(0)
-    pr0 = np.cos(true_omega * ts / 2) ** 2
-    counts = rng.binomial(n_shots, pr0)
-
-    from scipy.stats import binom
+    counts = rng.binomial(n_shots, np.cos(true_omega * ts / 2) ** 2)
 
     def np_likelihood(outcome, x, t):
         p0 = np.cos(x[:, 0] * t / 2) ** 2
         return binom.pmf(outcome, n_shots, p0)
 
-    model = q.BinomialModel(q.SimplePrecessionModel(), n_meas_max=n_shots)
-    u = q.SMCUpdater(model, n_particles,
-                     q.UniformDistribution([[0.0, 1.0]]), seed=7)
-    eps_batch = {"t": jnp.asarray(ts, jnp.float32),
-                 "n_meas": jnp.full((len(ts),), n_shots, jnp.int32)}
-    _crosscheck(
-        u,
+    return OracleProblem(
+        q.BinomialModel(q.SimplePrecessionModel(), n_meas_max=n_shots),
+        q.UniformDistribution([[0.0, 1.0]]),
         np_likelihood,
         lambda rng, n: rng.uniform(0.0, 1.0, (n, 1)),
         lambda x: (x[:, 0] >= 0.0) & (x[:, 0] <= 1.0),
-        counts, list(ts), eps_batch, n_particles)
+        counts, list(ts),
+        {"t": jnp.asarray(ts, jnp.float32),
+         "n_meas": jnp.full((len(ts),), n_shots, jnp.int32)})
+
+
+def test_crosscheck_precession_binomial():
+    n_particles = 5000
+    prob = precession_binomial_problem()
+    u = q.SMCUpdater(prob.model, n_particles, prob.prior, seed=7)
+    _crosscheck(u, prob.np_likelihood, prob.np_prior, prob.np_valid,
+                prob.outcomes, prob.eps_list, prob.eps_batch, n_particles)
 
 
 # ---------------------------------------------------------------------------
@@ -225,19 +273,19 @@ def test_crosscheck_ramsey():
 # BASELINE config 4 family: qubit state tomography (Bloch coords)
 # ---------------------------------------------------------------------------
 
-def test_crosscheck_tomography():
+def qubit_tomography_problem(n_exp=30, n_shots=15):
+    """Qubit state tomography: a fixed cycle of Pauli-projector
+    measurements on a fixed mixed state, Ginibre prior."""
     import qinfer_tpu.tomography as tomo
+    from scipy.stats import binom
 
-    n_particles = 8000
-    n_shots = 15
     basis = tomo.pauli_basis(1)
-
     # true state and a fixed cycle of Pauli-projector measurements
     rho_true = np.array([[0.8, 0.25 + 0.1j], [0.25 - 0.1j, 0.2]],
                         dtype=np.complex128)
     paulis = [np.array([[0, 1], [1, 0]]), np.array([[0, -1j], [1j, 0]]),
               np.array([[1, 0], [0, -1]])]
-    projs = [(np.eye(2) + P) / 2 for P in paulis] * 10   # 30 experiments
+    projs = [(np.eye(2) + paulis[k % 3]) / 2 for k in range(n_exp)]
 
     # coordinates in the same normalized Pauli basis the device model uses
     def coords_of(H):
@@ -250,8 +298,6 @@ def test_crosscheck_tomography():
     counts = np.asarray([
         rng.binomial(n_shots, np.real(np.trace(E @ rho_true)))
         for E in projs])
-
-    from scipy.stats import binom
 
     def np_likelihood(outcome, x, e_coords):
         # Born rule as a coordinate dot product; x excludes the (fixed)
@@ -275,15 +321,17 @@ def test_crosscheck_tomography():
     def np_valid(x):
         return 2.0 * np.sum(x * x, axis=1) <= 1.0 + 1e-6
 
-    model = q.BinomialModel(tomo.TomographyModel(basis),
-                            n_meas_max=n_shots)
-    u = q.SMCUpdater(model, n_particles,
-                     tomo.GinibreDistribution(basis), seed=13)
-    eps_batch = {"meas": jnp.asarray(np.stack(meas_coords), jnp.float32),
-                 "n_meas": jnp.full((len(projs),), n_shots, jnp.int32)}
-    _crosscheck(
-        u,
-        np_likelihood,
-        np_prior,
-        np_valid,
-        counts, meas_coords, eps_batch, n_particles)
+    return OracleProblem(
+        q.BinomialModel(tomo.TomographyModel(basis), n_meas_max=n_shots),
+        tomo.GinibreDistribution(basis),
+        np_likelihood, np_prior, np_valid, counts, meas_coords,
+        {"meas": jnp.asarray(np.stack(meas_coords), jnp.float32),
+         "n_meas": jnp.full((n_exp,), n_shots, jnp.int32)})
+
+
+def test_crosscheck_tomography():
+    n_particles = 8000
+    prob = qubit_tomography_problem()
+    u = q.SMCUpdater(prob.model, n_particles, prob.prior, seed=13)
+    _crosscheck(u, prob.np_likelihood, prob.np_prior, prob.np_valid,
+                prob.outcomes, prob.eps_list, prob.eps_batch, n_particles)

@@ -4,7 +4,7 @@ CPU mesh, plus the DirectView parity shim with a serial mock.
 Reference parity: ``src/qinfer/tests/test_parallel.py`` pattern — the
 reference tests ``DirectViewParallelizedModel`` with an in-process mock view
 (SURVEY.md §4 "Distributed tests without a cluster"); the mesh tests are the
-TPU-native equivalent using ``xla_force_host_platform_device_count``.
+device-mesh equivalent using ``xla_force_host_platform_device_count``.
 """
 
 import numpy as np

@@ -292,8 +292,8 @@ def test_counting_point_mass_and_uniform():
 
 
 def test_counting_fill_strategies_agree():
-    """Both forward-fill strategies (associative_scan on TPU, telescoping
-    scatter-add + cumsum on CPU) must reconstruct the same resample."""
+    """Both forward-fill strategies (associative_scan, telescoping
+    scatter-add + cumsum) must reconstruct the same resample."""
     from qinfer_tpu import resamplers as R
 
     rng = np.random.default_rng(3)

@@ -297,9 +297,9 @@ def test_ancestor_multiplicities_shares_guarded_impl():
 
 def test_liu_west_fill_strategy_override():
     """``LiuWestResampler(fill_strategy=...)`` pins the ancestor-fill
-    strategy (benchmarks use this to measure the Pallas-vs-XLA delta
-    through the full engine); all strategies implement the same
-    resampling law, so posteriors must stay statistically identical."""
+    strategy (benchmarks use this to compare the fills through the full
+    engine); all strategies implement the same resampling law, so
+    posteriors must stay statistically identical."""
     from qinfer_tpu.resamplers import LiuWestResampler
 
     key = jax.random.key(3)
@@ -309,7 +309,7 @@ def test_liu_west_fill_strategy_override():
     model = q.SimplePrecessionModel()
 
     outs = {}
-    for strat in ("scan", "telescope"):
+    for strat in ("gather", "scan", "telescope"):
         rs = LiuWestResampler(a=0.98, fill_strategy=strat)
         outs[strat] = rs(model, key, w, x)
     # same key + same counting prelude: ancestors agree, so the proposals
@@ -317,6 +317,8 @@ def test_liu_west_fill_strategy_override():
     np.testing.assert_allclose(np.asarray(outs["scan"][1]),
                                np.asarray(outs["telescope"][1]),
                                rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(outs["scan"][1]),
+                                  np.asarray(outs["gather"][1]))
     with pytest.raises(ValueError):
         LiuWestResampler(fill_strategy="bogus")
 

@@ -2,9 +2,7 @@
 
 * while-loop resample gate pinned against the ``lax.cond`` form on both
   the taken and untaken branch (weak #1 — the gate landed in the round-3
-  snapshot commit without its own regression test);
-* construction-time TPU guard for embedded d>32 tomography models is
-  covered in test_tomography.py (weak #5).
+  snapshot commit without its own regression test).
 """
 
 import jax
@@ -94,36 +92,6 @@ def test_gated_resample_traced_predicate_in_scan():
                                    atol=1e-5)
         np.testing.assert_allclose(np.asarray(xs[i]), np.asarray(cx),
                                    atol=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# VERDICT r3 #6: the d>32 projection cliff is fenced at construction
-# ---------------------------------------------------------------------------
-
-def test_tomography_d_gt_32_warns_on_tpu(monkeypatch):
-    """Embedded d > 32 exceeds the lane-Jacobi kernel gate; on TPU the
-    jnp.linalg.eigh fallback costs seconds per projection (PERF_NOTES
-    'latent d>32 cliff') — the model must say so at CONSTRUCTION."""
-    import warnings
-    import qinfer_tpu.tomography as tomo
-    from qinfer_tpu._exceptions import PerformanceWarning
-
-    b = tomo.pauli_basis(5)  # dim 32, embedded 64
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.warns(PerformanceWarning, match="d>32 cliff"):
-        tomo.TomographyModel(b)
-
-    # at or under the gate: silent
-    b16 = tomo.pauli_basis(4)  # dim 16, embedded 32 (kernel-covered)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", PerformanceWarning)
-        tomo.TomographyModel(b16)
-
-    # CPU construction is silent regardless (no TPU cliff to hit)
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", PerformanceWarning)
-        tomo.TomographyModel(b)
 
 
 # ---------------------------------------------------------------------------
